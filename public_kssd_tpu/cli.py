@@ -27,7 +27,7 @@ import numpy as np
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="kssd_tpu",
-        description="TPU-native k-mer substring-space sketching (kssd-compatible)",
+        description="accelerator k-mer substring-space sketching (kssd-compatible)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -40,7 +40,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--random-perm", action="store_true",
                    help="Fisher-Yates table like the reference (the default "
                    "is a computed Feistel permutation: identical .shuf "
-                   "format, gather-free TPU sketching)")
+                   "format, gather-free device sketching)")
 
     p = sub.add_parser("dist", help="sketching and distance estimation")
     p.add_argument("-k", type=int, default=8, help="half k-mer length [8]")
@@ -153,7 +153,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="abv search: 0 cosine / 1 L1 / 2 L2")
     p.add_argument("-d", dest="readabv", action="store_true", help="dump .abv file")
     p.add_argument("--device-search", action="store_true",
-                   help="force the dense MXU .abv search / device -q join "
+                   help="force the dense device .abv search / device -q join "
                    "(auto-selected for large matrices; see "
                    "composite.ABV_DENSE_THRESHOLD)")
     p.add_argument("--host-search", action="store_true",

@@ -6,7 +6,7 @@ an open-addressing double hash (HASH/H1/H2, global_basic.h:228-230) and
 dumps occupied slots in slot order (wrt_co2cmpn_use_inn_subctx,
 iseq2comem.c:525-551), so the on-disk code order is the hash-table layout.
 
-On TPU we dedup by sort-unique (order-invariant; distances are identical),
+By default we dedup by sort-unique (order-invariant; distances are identical),
 but to produce byte-identical sketch files we also replicate the exact
 slot ordering here on the host: the kept-code stream is tiny (~genome
 bases / 16^drlevel), so an exact table simulation costs microseconds.
@@ -193,7 +193,7 @@ def dedup_counts_slot_order_py(
 
 
 def dedup_sorted(codes: np.ndarray, uniq: bool = False) -> np.ndarray:
-    """Fast order-invariant dedup (ascending): the TPU-native default.
+    """Fast order-invariant dedup (ascending): the fast default.
 
     Same set as dedup_slot_order (drtuple 0 dropped; uniq keeps
     singletons only); only the on-disk ordering differs.

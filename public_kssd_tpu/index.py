@@ -5,7 +5,7 @@ Reference: run_stageII (command_dist.c:381-417) + combco2mco
 cumulative index (2 GiB at CSZ=7 regardless of data!) plus concatenated
 genome-id postings.
 
-TPU-native redesign: the index is built by a single stable argsort of the
+Redesign: the index is built by a single stable argsort of the
 component's codes (postings order = code ascending, genome ascending —
 bit-identical to the reference's insertion order), and the in-memory /
 on-device representation is CSR over the *occupied* rows only
@@ -49,9 +49,8 @@ def build_component_index(
     ``device=True`` runs the sort — the stage II hot op (combco2mco's
     row fill, co2mco.c:42-55; SURVEY C9) — on the accelerator
     (jnp.sort of the packed keys, ~0.5 s for the 412M-posting GTDB
-    build vs minutes on a 2-core host). Worth it when the host<->device
-    link is PCIe; through a slow tunnel the two transfers (~8 B/posting
-    each way) can eat the win, so the host sort stays the default.
+    build vs minutes on a 2-core host). The two transfers (~8 B/posting
+    each way) are part of its cost, so the host sort stays the default.
     Boundary extraction is host-side either way (dynamic output sizes
     don't fit XLA's static shapes, and it is cheap)."""
     gid_of = (

@@ -1,50 +1,96 @@
 """ctypes bindings for the native host helpers (kssd_host.c).
 
-The shared library is built on demand with the system compiler; if that
-fails (no toolchain), callers fall back to the pure-python/numpy
-implementations in seqio.py / hashdedup.py — same results, slower host
-path.
+The shared library is built on first use with the system compiler into
+``build/`` beside this file (not version-controlled). It is compiled
+with ``-march=native``, so its file name carries a digest of the source
+and of the host CPU: a library built on one machine is never loaded on
+another. If the build fails (no toolchain), callers fall back to the
+pure-python/numpy implementations in seqio.py / hashdedup.py — same
+results, slower host path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
+import threading
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "kssd_host.c")
-_SO = os.path.join(_HERE, "kssd_host.so")
+_BUILD = os.path.join(_HERE, "build")
 
 _lib = None
 _tried = False
+_lock = threading.Lock()  # parse threads may race the first build
 
 
-def _build() -> bool:
-    cmd = ["cc", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", _SO,
+def _machine_key() -> str:
+    """Digest of the C source and the host CPU (architecture, model
+    name and feature flags as /proc/cpuinfo reports them)."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(platform.machine().encode())
+    cpu = set()
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith((b"model name", b"flags", b"Features")):
+                    cpu.add(line.strip())
+    except OSError:
+        pass
+    for line in sorted(cpu):
+        h.update(line)
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    """Where this machine's build of the library lives."""
+    return os.path.join(_BUILD, f"kssd_host-{_machine_key()}.so")
+
+
+def _build(so_path: str) -> bool:
+    os.makedirs(_BUILD, exist_ok=True)
+    # compile to a private name, then rename: concurrent first uses
+    # (test workers, parse threads) never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    cmd = ["cc", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", tmp,
            "-lm"]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, so_path)
         return True
     except (OSError, subprocess.CalledProcessError):
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
 
 
 def get_lib():
     """The loaded library, or None if unavailable."""
-    global _lib, _tried
-    if _lib is not None or _tried:
+    with _lock:
+        if not _tried:
+            _load()
         return _lib
+
+
+def _load() -> None:
+    global _lib, _tried
     _tried = True
-    if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        if not _build():
-            return None
+    so_path = library_path()
+    if not os.path.exists(so_path) and not _build(so_path):
+        return
     try:
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(so_path)
     except OSError:
-        return None
+        return
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
     u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
@@ -77,7 +123,6 @@ def get_lib():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
     ]
     _lib = lib
-    return _lib
 
 
 def fasta_to_codes(raw: bytes) -> np.ndarray | None:

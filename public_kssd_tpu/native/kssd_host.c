@@ -1,6 +1,6 @@
 /* Native host helpers for public_kssd_tpu.
  *
- * The TPU owns the compute path (window extraction, filtering, counting);
+ * The device owns the compute path (window extraction, filtering, counting);
  * these C routines own the host-side streaming work the reference also
  * does natively: byte-stream parsing/2-bit packing and the exact
  * open-addressing dedup that reproduces the reference's on-disk code

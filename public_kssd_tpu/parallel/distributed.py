@@ -10,7 +10,8 @@ communication backend). The scale-out contract here:
   * merged view — shard dirs concatenate into one sketch dir with index
     rebasing (combine.combine_queries), or are consumed shard-wise,
   * search — the DB CSR shards across the global device mesh
-    (parallel.sharded_search); per-shard counts psum over ICI/DCN.
+    (parallel.sharded_search); per-shard counts psum over the device
+    interconnect.
 
 Every artifact stays byte-compatible with the reference; the manifest is
 an additional json file the reference simply ignores.
@@ -34,7 +35,7 @@ def initialize(coordinator_address: str | None = None,
     if coordinator_address is not None:
         if os.environ.get("JAX_PLATFORMS", "") == "cpu":
             # cross-process collectives on the CPU backend need gloo
-            # (multi-host CI / local testing; TPU slices use ICI/DCN)
+            # (multi-process CI / local testing; GPUs use NCCL)
             jax.config.update("jax_cpu_collectives_implementation", "gloo")
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

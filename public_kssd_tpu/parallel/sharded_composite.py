@@ -4,7 +4,7 @@ over a device mesh.
 The reference's composite hot loop probes every reference genome's codes
 against a per-query abundance hash with OpenMP threads on one node
 (get_species_abundance, command_composite.c:464-481). The single-device
-TPU redesign (composite.py) turns that into ONE chunked DB pass for the
+redesign (composite.py) turns that into ONE chunked DB pass for the
 whole query batch (combined sorted query table + capacity-bounded ragged
 expansion); this module scales that same batched join over a 1-D ``ref``
 mesh axis — the GTDB-style "composite across N>=2 hosts" direction of
@@ -14,8 +14,7 @@ BASELINE config 5:
     are sharded by position over ``ref``: each device joins only its
     ~|DB|/S slice against the (replicated, tiny) combined query table,
     in JOIN_CHUNK slices so the expansion transients stay bounded no
-    matter how few devices the mesh has (an unchunked GTDB-scale slice
-    crashes a 16 GB chip — composite.py JOIN_CHUNK),
+    matter how few devices the mesh has (composite.py JOIN_CHUNK),
   * each (shard, chunk) compacts its hits into a ``cap``-slot buffer of
     ``qid << shift | rid << 16 | abundance`` keys; the stacked
     [S, n_chunks, cap+1] buffer is the ONLY data that leaves the devices

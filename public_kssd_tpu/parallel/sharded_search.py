@@ -1,7 +1,7 @@
 """Multi-device / multi-host search: reference DB sharded over a mesh.
 
 The reference has no distributed backend at all (single node, OpenMP +
-mmap; SURVEY.md §2). This module is the TPU-native scale-out design.
+mmap; SURVEY.md §2). This module is the multi-device scale-out design.
 Query code batches are sharded over the data-parallel axis ``dp``; the
 CSR inverted index is sharded over the mesh axis ``ref`` by one of two
 strategies:
@@ -25,7 +25,7 @@ strategies:
     are so genome-skewed that genome blocks cannot balance.
 
 bench.py's weak-scaling section measures both and counts the collective
-bytes from the compiled HLO; README.md carries the resulting ICI model.
+bytes from the compiled HLO.
 
 Components are folded into a single uint64 key space
 (key = id << comp_code_bits | component — a bijection of the reference's
@@ -36,17 +36,13 @@ index serves all components.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-if hasattr(jax, "shard_map"):  # jax >= 0.4.35
-    shard_map = jax.shard_map
-else:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+shard_map = jax.shard_map
 
 from public_kssd_tpu import formats
 from public_kssd_tpu.config import SketchParams
@@ -70,7 +66,7 @@ class ShardedDB:
     # ops.count._device_rowtab, built by _attach_buckets): the shard's
     # sorted keys reshaped to 128-lane rows + a small prefix->row rank
     # table; per-key lookup = 1 scalar gather + rspan row gathers +
-    # a VPU lane compare instead of a K-step binary search
+    # a lane compare instead of a K-step binary search
     u2: np.ndarray | None = None  # uint64 [S, nrows_pad, 128]
     rowtab: np.ndarray | None = None  # int32 [S, nb]
     rshift: int = 0
@@ -243,9 +239,8 @@ def _attach_buckets(db: ShardedDB) -> ShardedDB:
     """Per-shard ROW-GATHER lookup tables (the sharded twin of
     ops.count._device_rowtab): each shard's sorted keys reshaped to
     [nrows, 128] rows (pad UINT64_MAX) plus a SMALL prefix->row rank
-    table over the GLOBAL key width. Small on purpose — measured on a
-    v5e, gathers into a ~1-4 MB table are ~free while a 64 MB table
-    costs ~12 ns each. Pad keys sort after every probe and can never
+    table over the GLOBAL key width (small so that it stays
+    cache-resident). Pad keys sort after every probe and can never
     equal a real key (keys are code<<bits|comp < 2^(32+bits)), so the
     lane-equality found check has no alias corner here."""
     S, nnz_pad = db.uniq.shape
@@ -292,10 +287,9 @@ def _attach_buckets(db: ShardedDB) -> ShardedDB:
 
 def _window_search(qry_keys, uniq, rowtab, rshift: int, rspan: int):
     """Scalar binary search bounded to the rank-table window (the CPU
-    mesh fallback): lower_bound lies in [rowtab[p]*128, +rspan*128), so
-    ~log2(rspan*128) gathers per key — the same cost shape as the old
-    per-shard bucket search, without the row-gather's 128x lane work
-    that the CPU VPU-less backend would pay."""
+    mesh lookup): lower_bound lies in [rowtab[p]*128, +rspan*128), so
+    ~log2(rspan*128) gathers per key, without the row-gather's 128x lane
+    work that a CPU pays in full."""
     nb = rowtab.shape[0]
     nnz = uniq.shape[0]
     p = jnp.minimum(
@@ -317,8 +311,8 @@ def _window_search(qry_keys, uniq, rowtab, rshift: int, rspan: int):
 
 def _rowgather_lookup(qry_keys, u2, rowtab, rshift: int, rspan: int):
     """Per-shard row-gather lower_bound on uint64 keys: 1 scalar gather
-    into the small rank table + rspan 128-lane row gathers + a VPU
-    lane compare/popcount (the sharded twin of the lookup inside
+    into the small rank table + rspan 128-lane row gathers + a lane
+    compare/popcount (the sharded twin of the lookup inside
     ops.count._count_rowgather). Returns (row, found) — found needs no
     pad-alias guard here because the UINT64_MAX pad can never equal a
     folded key."""
@@ -430,6 +424,20 @@ def _count_partial_pair(
     )
 
 
+def uses_rowgather(platform: str) -> bool:
+    """Whether the mesh kernels use the row-gather lookup on ``platform``
+    (a jax backend name). The GPU takes it, as the single-device kernel
+    does. On the CPU the 128-lane compares do 128x the work of the
+    windowed binary search (measured ~6x slower per step), so CPU
+    meshes keep _window_search. The sharding structure (specs,
+    collectives) is identical either way."""
+    if platform == "gpu":
+        return True
+    if platform == "cpu":
+        return False
+    raise ValueError(f"no lookup rule for platform {platform!r}")
+
+
 def make_sharded_count_fn(
     mesh: Mesh, n_qry: int, n_ref: int, capacity: int,
     qry_axis: str = "dp", ref_axis: str = "ref",
@@ -463,24 +471,17 @@ def make_sharded_count_fn(
     budget.
     """
     genome = strategy == "genome"
-    # the row-gather lookup is a TPU-memory-system optimisation (lane
-    # loads beat scalar gathers ~3x there); on the CPU backend the
-    # 128-lane compares do 128x the work of a binary search and slow
-    # the step ~6x (measured), so CPU meshes — including the
-    # weak-scaling instrument's — keep the searchsorted lookup. The
-    # sharding structure (specs, collectives) is identical either way.
     if use_rowgather is None:
-        use_rowgather = jax.default_backend() != "cpu"
+        use_rowgather = uses_rowgather(jax.default_backend())
     out_spec = P(qry_axis, ref_axis) if genome else P(qry_axis, None)
 
     def merge(x):
         return x if genome else jax.lax.psum(x, ref_axis)
 
     def merge_u64(x):
-        # 64-bit integer all-reduce relies on XLA's 2x32 emulation on
-        # real TPU backends (only exercised on CPU in CI) — decompose
-        # into three 22-bit planes instead: each uint32 plane psum is
-        # native and exact for up to 2^10 shards (plane sums stay under
+        # a 64-bit integer all-reduce is not native on every backend —
+        # decompose into three 22-bit planes instead: each uint32 plane
+        # psum is exact for up to 2^10 shards (plane sums stay under
         # 2^32), and the recombination is carry-free in uint64.
         if genome:
             return x
@@ -592,15 +593,7 @@ def sharded_search_counts(
         else np.zeros((n_qry_total, n_ref), dtype=np.uint32)
     )
     # DB shards go on-device ONCE; query batches stream against them
-    sh_ref = NamedSharding(mesh, P(ref_axis, None))
-    sh_ref3 = NamedSharding(mesh, P(ref_axis, None, None))
-    db_dev = tuple(
-        jax.make_array_from_callback(
-            a.shape, sh_ref3 if a.ndim == 3 else sh_ref,
-            lambda i, a=a: a[i],
-        )
-        for a in (db.uniq, db.offsets, db.gids, db.u2, db.rowtab)
-    )
+    db_dev = put_sharded_db(db, mesh, ref_axis)
     batch = batch or n_qry_total
     for b0 in range(0, n_qry_total, batch):
         b1 = min(b0 + batch, n_qry_total)
@@ -616,6 +609,23 @@ def sharded_search_counts(
         else:
             out[b0:b1] = blk
     return out
+
+
+def put_sharded_db(db: ShardedDB, mesh: Mesh, ref_axis: str = "ref"):
+    """Place a ShardedDB (with its row-gather tables) on the mesh: the
+    device arrays (uniq, offsets, gids, u2, rowtab), each sharded over
+    ``ref`` by its leading axis so every device holds only its own
+    shard. Built with make_array_from_callback, so the same call works
+    multi-process: each process materialises only its local shards."""
+    sh_ref = NamedSharding(mesh, P(ref_axis, None))
+    sh_ref3 = NamedSharding(mesh, P(ref_axis, None, None))
+    return tuple(
+        jax.make_array_from_callback(
+            a.shape, sh_ref3 if a.ndim == 3 else sh_ref,
+            lambda i, a=a: a[i],
+        )
+        for a in (db.uniq, db.offsets, db.gids, db.u2, db.rowtab)
+    )
 
 
 def estimate_capacity(

@@ -1,6 +1,6 @@
 """Stage I orchestration: sequence files -> sketch directory ("co dir").
 
-TPU-native counterpart of run_stageI (command_dist.c:258-380): the host
+Device counterpart of run_stageI (command_dist.c:258-380): the host
 streams and 2-bit-packs each input file, the device kernel filters and
 repacks k-mers, dedup happens either by sort-unique (fast, order-
 invariant) or by exact hash-table simulation (byte-parity with the
@@ -89,7 +89,7 @@ def parsed_streams(paths, opts: SketchOptions, workers: int | None = None):
     so decompression+parsing overlaps device work). Prefetch depth is
     bounded at 2x the pool so huge inputs don't all sit in RAM.
 
-    The TPU-side analog of the reference's OpenMP parallel-for over
+    The analog of the reference's OpenMP parallel-for over
     genomes (run_stageI, command_dist.c:277-312) — but here host threads
     only feed the parser; the sketch math itself is batched on-device.
     """

@@ -5,7 +5,7 @@ Reference: command_set.c. The reference materialises a 2^(4*CSZ)-bit
 bitmap per component and enumerates set bits MSB-first word by word
 (command_set.c:260-291), which yields codes in ascending numeric order —
 so union/uniq-union are exactly sort-unique / count==1 selections, the
-natural TPU formulation (jnp.unique on device for large inputs).
+natural device formulation (jnp.unique on device for large inputs).
 
 Byte-level quirks reproduced:
   * union/uniq-union write only the 32-byte stat header, no counts/names

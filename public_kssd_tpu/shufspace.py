@@ -3,20 +3,19 @@ substring space.
 
 The reference samples k-mer space with a Fisher-Yates random permutation
 table of the 16^s inner-substring space (shuffle(), command_shuffle.c:
-131-153) because a CPU table lookup is effectively free. On TPU that
-lookup is the single most expensive op in the sketch kernel: a random
-gather into a 16^s-entry HBM table runs at ~100 M lookups/s on a v5e
-(measured), an order of magnitude slower than the rest of the window
-math combined.
+131-153) because a CPU table lookup is effectively free. On an
+accelerator that lookup is a random gather into a 16^s-entry table in
+device memory, the one access of the sketch kernel that is not
+streaming.
 
-TPU-native redesign: the permutation is OURS to generate -- any bijection
+Redesign: the permutation is OURS to generate -- any bijection
 of [0, 16^s) gives a valid, deterministic, order-free sample of k-mer
 space with exactly the same statistical guarantees (a uniformly random
 choice among permutations is not required, only fixed and well-mixing).
 So the default shuffle space is a 4-round balanced Feistel network over
 the 4s-bit inner value, whose round keys derive from the ``.shuf`` id.
-Membership (rank < dim_end) and rank then cost ~20 fused VPU ops per
-window and ZERO gathers.
+Membership (rank < dim_end) and rank then cost ~20 fused elementwise ops
+per window and ZERO gathers.
 
 Interop is preserved in both directions:
 
@@ -46,7 +45,7 @@ class ComputedShuf(NamedTuple):
     """Static (hashable) description of a computed shuffle space.
 
     Passed in place of the shuffled-dim table; the sketch kernel
-    evaluates the permutation in-register instead of gathering.
+    evaluates the permutation arithmetically instead of gathering.
     """
 
     seed: int  # .shuf header id
@@ -87,18 +86,12 @@ def feistel(xp, inner, seed: int, subctx_len: int):
     mask = xp.uint32((1 << h) - 1)
     left = (inner >> xp.uint32(h)) & mask
     right = inner & mask
-    # Right shifts are masked to the logically-shifted width: a no-op under
-    # correct uint32 semantics, but required inside Pallas kernels, where
-    # Mosaic lowers uint32 ``>>`` as an ARITHMETIC i32 shift (sign bits
-    # would smear into the high lanes and corrupt the permutation).
-    m15 = xp.uint32(0xFFFFFFFF >> 15)
-    m13 = xp.uint32(0xFFFFFFFF >> 13)
     for key in _round_keys(seed):
         # round function: multiply-add-xor mixer, truncated to h bits
         f = right * xp.uint32(_GOLDEN) + xp.uint32(key)
-        f = f ^ ((f >> xp.uint32(15)) & m15)
+        f = f ^ (f >> xp.uint32(15))
         f = f * xp.uint32(_MIX2)
-        f = (f ^ ((f >> xp.uint32(13)) & m13)) & mask
+        f = (f ^ (f >> xp.uint32(13))) & mask
         left, right = right, left ^ f
     return (left << xp.uint32(h)) | right
 

@@ -3,8 +3,8 @@ on-disk artifact path (combco.* + cofiles.stat, formats.py), for scale
 benchmarks and capacity planning.
 
 The flagship scale target is the reference's 317k-genome GTDB species
-database (SURVEY.md C17; /root/reference/data/specuq_grp_gtdb317kgenome_
-kssd, 65,702 species groups survive upstream) at the measured ~1,300
+database (SURVEY.md C17; data/specuq_grp_gtdb317kgenome_kssd in the
+reference's distribution, 65,702 species groups) at the measured ~1,300
 codes per genome for the k=10/l=3 default geometry (BASELINE.md).
 Everything downstream of these files — stage II CSR build, index load,
 -m governed or mesh-sharded search, composite — exercises the exact
@@ -13,6 +13,7 @@ code paths a real GTDB run uses.
 
 from __future__ import annotations
 
+import gzip
 import os
 
 import numpy as np
@@ -20,6 +21,31 @@ import numpy as np
 from public_kssd_tpu import formats
 
 SPACE_BITS = 28  # 4*(k-l) at k=10, l=3 — in-component id space at CSZ=7
+
+_ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def random_genome(rng: np.random.Generator, n: int) -> np.ndarray:
+    """``n`` uniformly random ACGT bases as ASCII bytes (uint8)."""
+    return _ACGT[rng.integers(0, 4, size=n).astype(np.uint8)]
+
+
+def mutate(rng: np.random.Generator, seq: np.ndarray, rate: float) -> np.ndarray:
+    """A copy of ``seq`` (ASCII ACGT) with a ``rate`` fraction of its
+    bases substituted, each by one of the three other bases."""
+    out = seq.copy()
+    pos = np.flatnonzero(rng.random(seq.size) < rate)
+    code = np.searchsorted(_ACGT, seq[pos])  # _ACGT is sorted
+    out[pos] = _ACGT[(code + rng.integers(1, 4, size=pos.size)) % 4]
+    return out
+
+
+def write_fasta_gz(path: str, name: str, seq: np.ndarray, width: int = 80) -> None:
+    """One-record gzipped fasta with ``width``-column sequence lines."""
+    body = seq.tobytes()
+    lines = [body[j : j + width] for j in range(0, len(body), width)]
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        f.write(f">{name}\n".encode() + b"\n".join(lines) + b"\n")
 
 
 def build_synth_ref(
@@ -50,22 +76,47 @@ def build_synth_ref(
     ))
 
 
-REAL_GTDB_INDEX = (
-    "/root/reference/data/specuq_grp_gtdb317kgenome_kssd/combco.index.0"
-)
+# recorded summary of the species DB's per-group sketch sizes (its
+# combco.index.0: 65,703 cumulative offsets): 19,725,358 codes in all,
+# median 251, mean 300, max 23,925 — an 80x skew
+GTDB_SPECIES_GROUPS = 65_702
+GTDB_SPECIES_CODES = 19_725_358
+GTDB_SPECIES_MEDIAN = 251
+GTDB_SPECIES_MAX = 23_925
 
 
-def real_gtdb_sizes(index_path: str = REAL_GTDB_INDEX) -> np.ndarray:
-    """The surviving REAL per-species-group sketch sizes of the GTDB
-    317k-genome database (SURVEY.md C17): combco.index.0 holds 65,703
-    uint64 cumulative offsets = 65,702 group sizes (total 19.7M codes,
-    median 251, mean 300, max 23,925 — an 80x skew the uniform
-    synthetic DB cannot exhibit). This is the one reference artifact
-    that survived the large-blob purge, and the size distribution is
-    what stresses genome-block padding and the postings-balanced code
-    cut (parallel/sharded_search.py)."""
-    idx = np.fromfile(index_path, dtype="<u8")
-    return np.diff(idx.astype(np.int64))
+def gtdb_like_sizes(seed: int = 0) -> np.ndarray:
+    """Per-group sketch sizes shaped like the GTDB species DB, from a seed.
+
+    A log-normal body (median 251) with a Pareto tail on 2% of the
+    groups, then pinned to the recorded summary exactly: 65,702 groups,
+    19,725,358 codes, median 251, max 23,925. The groups above the
+    median are stretched about the median to carry the recorded total,
+    so the ragged shapes downstream (CSR row lengths, genome-block
+    padding, the postings-balanced code cut) see the real skew."""
+    n, total = GTDB_SPECIES_GROUPS, GTDB_SPECIES_CODES
+    med, top = GTDB_SPECIES_MEDIAN, GTDB_SPECIES_MAX
+    rng = np.random.default_rng(seed)
+    x = np.exp(rng.normal(np.log(med), 0.5, n))
+    tail = rng.choice(n, n // 50, replace=False)
+    x[tail] = med * (1.0 + rng.pareto(1.5, tail.size))
+    x = np.sort(x) * (med / np.median(x))
+    mid = n // 2
+    lower = np.clip(np.rint(x[: mid - 1]), 1, med).astype(np.int64)
+    upper = x[mid + 1 : -1]  # between the median pair and the maximum
+    need = total - int(lower.sum()) - 2 * med - top
+    for _ in range(64):  # stretch about the median; clipping may repeat
+        ex = upper - med
+        upper = np.minimum(med + ex * ((need - med * upper.size) / ex.sum()),
+                           top - 1)
+        if abs(upper.sum() - need) < 0.5:
+            break
+    up = np.floor(upper).astype(np.int64)
+    frac = np.where(up < top - 1, upper - up, -1.0)
+    up[np.argsort(-frac, kind="stable")[: need - int(up.sum())]] += 1
+    sizes = np.concatenate([lower, [med, med], up, [top]])
+    rng.shuffle(sizes)
+    return sizes
 
 
 def build_synth_ref_sizes(
@@ -78,8 +129,8 @@ def build_synth_ref_sizes(
     dim_rd_len: int = 6,
 ) -> None:
     """Write a synthetic reference sketch dir with PER-GENOME sketch
-    sizes from ``sizes`` (e.g. real_gtdb_sizes()): same artifact path as
-    build_synth_ref, real skew."""
+    sizes from ``sizes`` (e.g. gtdb_like_sizes()): same artifact path as
+    build_synth_ref, with the given skew."""
     if os.path.isfile(os.path.join(out_dir, formats.CO_DSTAT)):
         return  # cached
     os.makedirs(out_dir, exist_ok=True)
@@ -130,7 +181,7 @@ def build_synth_queries(
     hit = rng.random(total) < hit_rate
     # per-ref sketch sizes from the stat (uniform OR skewed builds):
     # sample each planted code uniformly within the picked genome's
-    # combco range, skipping empty groups (real GTDB has some)
+    # combco range, skipping empty groups
     sizes = ref_stat.ctx_ct.astype(np.int64)
     starts = np.zeros(sizes.size + 1, dtype=np.int64)
     np.cumsum(sizes, out=starts[1:])

@@ -4,7 +4,7 @@ The reference has ms/us wall-clock helpers that are never called
 (mytime.c:17-41) and progress via printf (command_dist.c:311). Here every
 pipeline stage reports wall time and domain throughput (genomes/s,
 Mbp/s, pairs/s), and ``profile_trace`` wraps a block in a jax profiler
-trace for TPU timeline inspection.
+trace for device timeline inspection.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@ ARTIFACTS (SURVEY.md C17; the reference ships a 65,702-group species DB
 from this use case — data/specuq_grp_gtdb317kgenome_kssd).
 
 Sketch sizes here are scaled down (96 codes/genome vs the ~1,300 of the
-real k=10/l=3 geometry) to keep the CPU test box honest; bench.py's
---scale section runs the full ~1,300-code shape on the real chip. The
+real k=10/l=3 geometry) to keep the CPU test run short; bench.py's GTDB
+section runs the full ~1,300-code shape on the card. The
 GENOME dimension — 317k reference rows through combco -> stage II CSR
 sidecar -> load_sparse_index -> -m-batched and mesh-sharded counting ->
 top-N statistics, plus composite — is the real thing.
@@ -82,7 +82,7 @@ def test_gtdb_317k_composite(gtdb):
 
 def test_synth_ref_sizes_skewed_artifacts(tmp_path):
     """build_synth_ref_sizes writes per-genome sizes exactly (including
-    empty groups — the real GTDB index has some), and query planting
+    empty groups), and query planting
     samples only within each picked genome's combco range."""
     sizes = np.array([0, 3, 500, 1, 40, 0, 7, 90], dtype=np.int64)
     ref_dir = str(tmp_path / "ref")
@@ -103,11 +103,15 @@ def test_synth_ref_sizes_skewed_artifacts(tmp_path):
     assert np.isin(qcodes, codes).all()
 
 
-def test_real_gtdb_sizes_reads_reference_index():
-    """The surviving reference artifact parses to the documented shape."""
-    if not os.path.isfile(synthdb.REAL_GTDB_INDEX):
-        pytest.skip("reference checkout without the GTDB index")
-    sizes = synthdb.real_gtdb_sizes()
+@pytest.mark.parametrize("seed", [0, 31])
+def test_gtdb_like_sizes_match_recorded_summary(seed):
+    """The seeded generator reproduces the species DB's recorded size
+    summary exactly, and is a pure function of its seed."""
+    sizes = synthdb.gtdb_like_sizes(seed)
     assert sizes.size == 65_702
     assert int(sizes.sum()) == 19_725_358
-    assert sizes.min() >= 0 and int(sizes.max()) == 23_925
+    assert np.median(sizes) == 251
+    assert round(float(sizes.mean())) == 300
+    assert int(sizes.max()) == 23_925 and int(sizes.min()) >= 1
+    assert int((sizes == 23_925).sum()) == 1
+    np.testing.assert_array_equal(sizes, synthdb.gtdb_like_sizes(seed))

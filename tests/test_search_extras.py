@@ -303,7 +303,7 @@ def test_full_line_matches_handcomputed_fixture():
 
 
 def test_count_matmul_matches_expansion():
-    """The MXU one-hot matmul counting path (small-n_ref regime) must
+    """The one-hot matmul counting path (small-n_ref regime) must
     equal the numpy oracle exactly."""
     from public_kssd_tpu import index as index_mod
     from public_kssd_tpu.ops import count as count_ops
@@ -531,3 +531,73 @@ def test_rowgather_kernel_matches_oracle():
     want2 = count_ops.count_shared_np(
         qry, qidx, sp2.uniq_codes, sp2.offsets, sp2.gids, n_qry, 1)
     np.testing.assert_array_equal(got2, want2)
+
+
+def _planted_db(seed, n_ref=256, sk=128, n_qry=16, space=1 << 20):
+    from public_kssd_tpu import index as index_mod
+
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, space, size=(n_ref, sk), dtype=np.uint64)
+    sp = index_mod.build_component_index(
+        np.sort(ref, axis=1).ravel().astype(np.uint32),
+        np.arange(n_ref + 1, dtype=np.uint64) * sk, n_ref)
+    qry = rng.integers(0, space, size=n_qry * sk, dtype=np.uint64)
+    hit = rng.random(qry.size) < 0.5
+    qry[hit] = ref.ravel()[rng.integers(0, ref.size, size=int(hit.sum()))]
+    qidx = np.arange(n_qry + 1, dtype=np.uint64) * sk
+    return sp, qry.astype(np.uint32), qidx, n_qry
+
+
+@pytest.mark.parametrize(
+    "lookup", ["rowgather", "bucketed_packed", "bucketed", "searchsorted"])
+def test_forced_lookup_matches_oracle(lookup):
+    """Each branch of count_shared's dispatch, forced by name, counts
+    exactly what the numpy oracle counts."""
+    from public_kssd_tpu.ops import count as count_ops
+
+    assert lookup in count_ops.LOOKUPS
+    sp, qry, qidx, n_qry = _planted_db(31)
+    want = count_ops.count_shared_np(
+        qry, qidx, sp.uniq_codes, sp.offsets, sp.gids, n_qry, sp.n_genomes)
+    got = count_ops.count_shared(qry, qidx, sp, n_qry, lookup=lookup)
+    np.testing.assert_array_equal(got, want)
+    assert want.sum() > 0
+
+
+def test_forced_lookup_rejects_unknown_and_unavailable():
+    from public_kssd_tpu import index as index_mod
+    from public_kssd_tpu.ops import count as count_ops
+
+    sp, qry, qidx, n_qry = _planted_db(32)
+    with pytest.raises(ValueError, match="unknown lookup"):
+        count_ops.count_shared(qry, qidx, sp, n_qry, lookup="scan")
+    # an empty index builds no bucket tables: only searchsorted remains
+    empty = index_mod.SparseIndex(
+        uniq_codes=np.zeros(0, np.uint32), offsets=np.zeros(1, np.uint64),
+        gids=np.zeros(0, np.uint32), n_genomes=4)
+    with pytest.raises(ValueError, match="not available"):
+        count_ops.count_shared(qry, qidx, empty, n_qry, lookup="bucketed")
+
+
+def test_count_matmul_exact_above_tf32_multiplicity():
+    """A multiplicity of 3000 is past the 2048 integer limit of a TF32
+    product (the GPU default for float32 matmuls): the f32 path runs at
+    HIGHEST precision and stays exact."""
+    import jax
+
+    from public_kssd_tpu.ops import count as count_ops
+
+    sp, _, _, _ = _planted_db(33, n_ref=8, sk=32, space=1 << 12)
+    qry = np.full(3000, sp.uniq_codes[0], dtype=np.uint32)
+    qidx = np.array([0, qry.size], dtype=np.uint64)
+    want = count_ops.count_shared_np(
+        qry, qidx, sp.uniq_codes, sp.offsets, sp.gids, 1, sp.n_genomes)
+    assert want.max() >= 3000
+    np.testing.assert_array_equal(
+        count_ops.count_shared_matmul(qry, qidx, sp, 1), want)
+    jaxpr = str(jax.make_jaxpr(
+        lambda a, b, c, d: count_ops._count_matmul_device.__wrapped__(
+            a, b, c, d, n_qry=1, n_ref=8, nnz=16, q_f32=True)
+    )(np.zeros(4, np.int32), np.zeros(4, np.int32),
+      np.zeros(4, np.int32), np.zeros(4, np.int32)))
+    assert "HIGHEST" in jaxpr

@@ -282,8 +282,8 @@ def test_cli_device_index_matches_host(db7, tmp_path):
 
 @pytest.mark.parametrize("strategy", ["genome", "code"])
 def test_mesh_rowgather_lookup_equals_searchsorted(db7, strategy):
-    """The TPU row-gather mesh lookup (use_rowgather=True, exercised
-    here on CPU where the default is the searchsorted path) must
+    """The GPU row-gather mesh lookup (use_rowgather=True, exercised
+    here on CPU where the default is the windowed search) must
     produce identical sharded counts."""
     root, params, comps, oracle = db7
     key, offsets, gids = sharded_search.merge_components(
